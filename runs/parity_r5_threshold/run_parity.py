@@ -21,12 +21,12 @@ os.chdir(REPO)
 def main():
     with open(os.path.join(HERE, "oConfig.parity.json")) as f:
         cfg = json.load(f)
-    from ppqsflhe_tpu.orchestration.cli import main as omain
+    from ppqsflhe.orchestration.cli import main as omain
 
     rc = omain([os.path.join(HERE, "oConfig.parity.json")])
     assert rc == 0, "orchestrated run failed"
 
-    from ppqsflhe_tpu.train.evaluate import evaluate_rounds
+    from ppqsflhe.train.evaluate import evaluate_rounds
 
     out_dir = os.path.join(HERE, "results")
     for ccfg in cfg["CLIENT_CONFIGS"]:

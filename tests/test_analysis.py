@@ -7,9 +7,9 @@ import jax
 import jax.numpy as jnp
 import pandas as pd
 
-from ppqsflhe_tpu.comm.analyze import analyze, cross_check, load_metrics, summarize
-from ppqsflhe_tpu.comm.metrics import MetricsLog
-from ppqsflhe_tpu.train import lstm
+from ppqsflhe.comm.analyze import analyze, cross_check, load_metrics, summarize
+from ppqsflhe.comm.metrics import MetricsLog
+from ppqsflhe.train import lstm
 
 
 def make_csvs(tmp):
@@ -41,8 +41,8 @@ def test_analyze_summaries_and_crosscheck(tmp_path):
 
 
 def test_evaluate_rounds(tmp_path):
-    from ppqsflhe_tpu.train import gru
-    from ppqsflhe_tpu.train.trainer import _save_ckpt
+    from ppqsflhe.train import gru
+    from ppqsflhe.train.trainer import _save_ckpt
     from tests.test_train import synth_csv, client_cfg
 
     csv = synth_csv(str(tmp_path / "d.csv"))
@@ -53,7 +53,7 @@ def test_evaluate_rounds(tmp_path):
     for r in (1, 2):
         params = gru.init_params(jax.random.PRNGKey(r), 7)
         _save_ckpt(params, os.path.join(cfg["log_dir"], f"t1_best_2024010{r}_000000.npz"))
-    from ppqsflhe_tpu.train.evaluate import evaluate_rounds
+    from ppqsflhe.train.evaluate import evaluate_rounds
 
     mdf = evaluate_rounds(cfg, out_dir=str(tmp_path / "results"), verbose=False)
     assert len(mdf) == 2

@@ -6,8 +6,8 @@ import os
 
 import pytest
 
-from ppqsflhe_tpu.comm.client import CommClient
-from ppqsflhe_tpu.comm.server import ArtifactServer
+from ppqsflhe.comm.client import CommClient
+from ppqsflhe.comm.server import ArtifactServer
 
 
 @pytest.fixture()
@@ -61,7 +61,7 @@ def test_download_path_traversal_rejected(server, tmp_path):
 
 
 def test_bad_ciphertext_magic():
-    from ppqsflhe_tpu.ckks import serialize as ser
+    from ppqsflhe.ckks import serialize as ser
 
     with pytest.raises(ValueError, match="magic"):
         ser.ciphertext_from_bytes(b"XXXX" + b"\x00" * 64)
@@ -74,8 +74,8 @@ def test_ciphertext_wire_v2_packing():
     import numpy as np
     import jax.numpy as jnp
 
-    from ppqsflhe_tpu.ckks import serialize as ser
-    from ppqsflhe_tpu.ckks.types import Ciphertext
+    from ppqsflhe.ckks import serialize as ser
+    from ppqsflhe.ckks.types import Ciphertext
 
     rng = np.random.default_rng(0)
     moduli = [1152921504606748673, 1099510054913, 1099511922689, 557057]
@@ -142,7 +142,7 @@ def test_local_mode(tmp_path):
 
 def test_get_retries_then_fails(tmp_path):
     c = CommClient("http://127.0.0.1:9", role="x")  # closed port
-    import ppqsflhe_tpu.comm.client as cl
+    import ppqsflhe.comm.client as cl
 
     orig = cl.BACKOFF_S
     cl.BACKOFF_S = 0.01

@@ -7,7 +7,7 @@ import os
 import numpy as np
 import pytest
 
-from ppqsflhe_tpu.fl import api
+from ppqsflhe.fl import api
 
 
 @pytest.fixture(scope="module")
@@ -232,7 +232,7 @@ def test_nclient_aggregate(env):
 
 
 def test_cli_smoke(env, tmp_path):
-    from ppqsflhe_tpu.fl.cli import main
+    from ppqsflhe.fl.cli import main
 
     w = str(tmp_path / "w.json")
     make_weights(w, 60)
@@ -251,7 +251,7 @@ def test_gen_cc_parameter_bounds(tmp_path):
     size in (30,100), batch in (0, N/2], PREMode in {INDCPA, INDCCA}."""
     import pytest
 
-    from ppqsflhe_tpu.fl import api
+    from ppqsflhe.fl import api
 
     out = str(tmp_path / "cc.json")
     good = {"multiplicative_depth": 2, "scaling_mod_size": 40,
@@ -275,7 +275,7 @@ def test_threshold_cli_tools(env, tmp_path):
     """The 4 threshold multiparty CLI tools drive a full joint-key round:
     keygen ×3 → combine → encrypt under joint pk → aggregate →
     partial decrypt ×3 → fuse. Fused output = mean of the inputs."""
-    from ppqsflhe_tpu.fl.cli import main
+    from ppqsflhe.fl.cli import main
 
     d = str(tmp_path)
     shares, bshares = [], []
@@ -323,7 +323,7 @@ def test_openfhe_wire_pipeline(env, tmp_path):
     the decrypted aggregate still matches the plaintext FedAvg."""
     import base64
 
-    from ppqsflhe_tpu.ckks.openfhe_emit import parse_ciphertext_binary
+    from ppqsflhe.ckks.openfhe_emit import parse_ciphertext_binary
 
     d = str(tmp_path)
     w1, w2 = f"{d}/w1.json", f"{d}/w2.json"
@@ -359,7 +359,7 @@ def test_t_of_n_cli_tools(env, tmp_path):
     shares (t=2), each aggregates its incoming shares, and any 2 parties'
     weighted partials fuse to the plaintext mean — with the third party
     dropped out (VERDICT r2 #8 protocol surface)."""
-    from ppqsflhe_tpu.fl.cli import main
+    from ppqsflhe.fl.cli import main
 
     d = str(tmp_path)
     n_parties, t = 3, 2
@@ -513,7 +513,7 @@ def test_seeded_pubkey_roundtrip(env):
     decrypt round-trips), and the file is ~2x smaller than the dense form."""
     import jax
 
-    from ppqsflhe_tpu.ckks import serialize as ser
+    from ppqsflhe.ckks import serialize as ser
 
     sch = api.load_scheme(env["cc"])
     doc = ser.load_json(env["pk1"])
@@ -526,3 +526,38 @@ def test_seeded_pubkey_roundtrip(env):
     ct = sch.encrypt_values(pk, v, jax.random.PRNGKey(3))
     sk = ser.deserialize_secret_key(ser.load_json(env["sk1"]), sch.ctx)
     np.testing.assert_allclose(np.asarray(sch.decrypt(sk, ct)), v, atol=1e-4)
+
+
+@pytest.mark.parametrize("saved_impl,runs_as", [("pallas", "xla"),
+                                                ("pallas_mxu", "mxu")])
+def test_context_with_retired_ntt_impl_still_decrypts(tmp_path, saved_impl,
+                                                      runs_as):
+    """A CryptoContext saved with a retired kernel name ('pallas',
+    'pallas_mxu') loads on the plain-JAX path computing the same four-step
+    transform, so key material and ciphertexts made under it keep working:
+    an artifact encrypted under the retired-name context decrypts."""
+    cc = str(tmp_path / "CC.json")
+    api.gen_cc({"multiplicative_depth": 2, "scaling_mod_size": 40,
+                "batch_size": 32, "ring_dim": 128,
+                "ntt_backend": "fourstep", "ntt_impl": saved_impl}, cc)
+    with open(cc) as f:
+        doc = json.load(f)
+    assert doc["ntt_impl"] == runs_as
+    doc["ntt_impl"] = saved_impl          # as an older version wrote it
+    with open(cc, "w") as f:
+        json.dump(doc, f)
+    params = api.load_scheme(cc).params
+    assert (params.ntt_backend, params.ntt_impl) == ("fourstep", runs_as)
+
+    pk, sk = str(tmp_path / "pub.key"), str(tmp_path / "priv.key")
+    api.key_gen(cc, pk, sk, seed=5)
+    w = str(tmp_path / "w.json")
+    want = make_weights(w, 3)
+    enc, dec = str(tmp_path / "enc.json"), str(tmp_path / "dec.json")
+    api.encrypt_weights(cc, pk, w, enc, seed=6)
+    api.decrypt_weights(cc, sk, enc, dec)
+    with open(dec) as f:
+        got = json.load(f)
+    for rec in want:
+        np.testing.assert_allclose(load_values(got, rec["layer"]),
+                                   rec["values"], atol=1e-4)

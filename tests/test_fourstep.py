@@ -4,10 +4,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from ppqsflhe_tpu.core import primes
-from ppqsflhe_tpu.core.ntt import NttBasis
-from ppqsflhe_tpu.ops import u32pair as up
-from ppqsflhe_tpu.ops.pallas_ntt import FourStepNtt
+from ppqsflhe.core import primes
+from ppqsflhe.core.ntt import NttBasis
+from ppqsflhe.ops import u32pair as up
+from ppqsflhe.ops.fourstep import FourStepNtt
 
 
 def pairs(vals):
@@ -112,20 +112,6 @@ def test_fourstep_batched(setup):
     assert (back == xb).all()
 
 
-def test_pallas_interpret_matches_xla(setup):
-    """Pallas kernel in interpreter mode == the XLA fallback bit-for-bit."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    n, moduli, basis, fs, x = setup
-    with pltpu.force_tpu_interpret_mode():
-        fwd_p = np.asarray(fs.ntt(jnp.asarray(x), implementation="pallas"))
-    fwd_x = np.asarray(fs.ntt(jnp.asarray(x), implementation="xla"))
-    assert (fwd_p == fwd_x).all()
-    with pltpu.force_tpu_interpret_mode():
-        back_p = np.asarray(fs.intt(jnp.asarray(fwd_x), implementation="pallas"))
-    assert (back_p == x).all()
-
-
 def test_mxu_backend_bitexact():
     """The int8 digit-matmul MXU backend (ops/mxu_ntt.py) is bit-exact
     interchangeable with the four-step XLA path (same kernel eval order),
@@ -134,10 +120,10 @@ def test_mxu_backend_bitexact():
     import jax.numpy as jnp
     import numpy as np
 
-    from ppqsflhe_tpu.core import primes
-    from ppqsflhe_tpu.core.ntt import NttBasis
-    from ppqsflhe_tpu.ops.mxu_ntt import MxuNttTables, mxu_intt_limb, mxu_ntt_limb
-    from ppqsflhe_tpu.ops.pallas_ntt import FourStepNtt
+    from ppqsflhe.core import primes
+    from ppqsflhe.core.ntt import NttBasis
+    from ppqsflhe.ops.mxu_ntt import MxuNttTables, mxu_intt_limb, mxu_ntt_limb
+    from ppqsflhe.ops.fourstep import FourStepNtt
 
     n = 256
     moduli = ([primes.first_prime_down(60, 2 * n)]
@@ -167,135 +153,3 @@ def test_mxu_backend_bitexact():
     assert np.array_equal(via, ref)
     via_i = np.asarray(fs.intt(jnp.asarray(ref), implementation="mxu"))
     assert np.array_equal(via_i, x)
-
-
-def test_pallas_mxu_kernel_bitexact_interpret():
-    """The fused Pallas MXU kernel (ops/pallas_mxu_ntt.py) is bit-exact vs
-    the XLA four-step path, in Pallas interpret mode (the TPU compile path
-    is exercised by bench_kernels.py on hardware). Covers forward, inverse
-    and limb-subset calls across 60/40/20-bit moduli (uniform redc/4)."""
-    import jax.numpy as jnp
-    import numpy as np
-
-    from ppqsflhe_tpu.core import primes
-    from ppqsflhe_tpu.core.ntt import NttBasis
-    from ppqsflhe_tpu.ops.pallas_mxu_ntt import PallasMxuNtt
-    from ppqsflhe_tpu.ops.pallas_ntt import FourStepNtt
-
-    n = 256
-    moduli = ([primes.first_prime_down(60, 2 * n)]
-              + primes.prime_chain(40, 2, 2 * n)
-              + [primes.next_prime_up(1 << 19, 2 * n)])
-    basis = NttBasis(n, tuple(moduli))
-    fs = FourStepNtt(n, moduli, basis.psis)
-    pm = PallasMxuNtt(n, moduli, basis.psis)
-    rng = np.random.default_rng(11)
-    x = np.stack([rng.integers(0, q, size=(3, n), dtype=np.uint64)
-                  for q in moduli], axis=1)
-    ref = np.asarray(fs.ntt(jnp.asarray(x), implementation="xla"))
-    out = np.asarray(pm.ntt(jnp.asarray(x), interpret=True))
-    assert np.array_equal(out, ref)
-    iout = np.asarray(pm.intt(jnp.asarray(ref), interpret=True))
-    assert np.array_equal(iout, x)
-    sub = np.asarray(pm.ntt(jnp.asarray(x[:, :2]), idx=(0, 1), interpret=True))
-    assert np.array_equal(sub, ref[:, :2])
-
-
-def test_pallas_mxu_big_bitexact_interpret():
-    """The streamed two-kernel variant for N>2^15 (PallasMxuNttBig,
-    VERDICT r3 #1) is bit-exact vs the xla four-step path and satisfies
-    intt(ntt(x)) == x, including on limb subsets (interpret mode)."""
-    import jax.numpy as jnp
-
-    from ppqsflhe_tpu.core import primes
-    from ppqsflhe_tpu.ops.pallas_mxu_ntt import PallasMxuNttBig
-    from ppqsflhe_tpu.ops.pallas_ntt import FourStepNtt
-
-    n, L, B = 1 << 10, 3, 2
-    moduli = [primes.first_prime_down(59, 2 * n)] + primes.prime_chain(40, 2, 2 * n)
-    psis = [primes.root_of_unity(2 * n, q) for q in moduli]
-    fs = FourStepNtt(n, moduli, psis)
-    big = PallasMxuNttBig(n, moduli, psis, blk=16)
-    rng = np.random.default_rng(3)
-    x = jnp.asarray(np.stack([
-        np.stack([rng.integers(0, q, n, dtype=np.uint64) for q in moduli])
-        for _ in range(B)
-    ]))
-    want = fs.ntt(x, implementation="xla")
-    got = big.ntt(x, interpret=True)
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
-    back = big.intt(got, interpret=True)
-    np.testing.assert_array_equal(np.asarray(back), np.asarray(x))
-    got2 = big.ntt(x[:, :2], idx=(0, 1), interpret=True)
-    np.testing.assert_array_equal(np.asarray(got2), np.asarray(want[:, :2]))
-
-
-def test_pallas_mxu_group_routing_bitexact(monkeypatch):
-    """Per-group fused/streamed routing (r5, VERDICT r4 #2): with a tiny
-    VMEM budget the nd=9 (60-bit) group streams through the two-kernel
-    pair while the nd=6 group stays fused — outputs bit-exact vs xla and
-    vs the all-fused runner."""
-    import jax.numpy as jnp
-
-    from ppqsflhe_tpu.core import primes
-    from ppqsflhe_tpu.ops import pallas_mxu_ntt as PMX
-    from ppqsflhe_tpu.ops.pallas_ntt import FourStepNtt
-
-    n = 256
-    moduli = ([primes.first_prime_down(60, 2 * n)]
-              + primes.prime_chain(40, 2, 2 * n))
-    psis = [primes.root_of_unity(2 * n, q) for q in moduli]
-    fs = FourStepNtt(n, moduli, psis)
-    pm = PMX.PallasMxuNtt(n, moduli, psis)
-    # budget sized so ONLY the 40-bit (smaller-nd) group fits
-    fits = sorted(set(pm._nd_of))
-    assert len(fits) == 2, pm._nd_of
-    lo_nd, hi_nd = fits
-    mats = lambda nd: 2 * ((nd * pm.n1) ** 2 + (nd * pm.n2) ** 2 + 8 * n * 4)
-    pm._vmem_budget = (mats(lo_nd) + mats(hi_nd)) // 2
-    assert pm._group_fits(lo_nd) and not pm._group_fits(hi_nd)
-
-    rng = np.random.default_rng(5)
-    x = jnp.asarray(np.stack([
-        np.stack([rng.integers(0, q, n, dtype=np.uint64) for q in moduli])
-        for _ in range(2)
-    ]))
-    want = fs.ntt(x, implementation="xla")
-    got = pm.ntt(x, interpret=True)
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
-    assert pm._big is not None            # the streamed delegate engaged
-    back = pm.intt(got, interpret=True)
-    np.testing.assert_array_equal(np.asarray(back), np.asarray(x))
-
-
-def test_pallas_mxu_mont_twiddle_bitexact(monkeypatch):
-    """The 2-table Montgomery-twiddle fused variant (late r5: fits the
-    nd=6 group at N=2^16 into the default VMEM scope) is bit-exact vs the
-    4-table Shoup-quad kernel and the xla path, forward and inverse."""
-    import jax.numpy as jnp
-
-    from ppqsflhe_tpu.core import primes
-    from ppqsflhe_tpu.ops import pallas_mxu_ntt as PMX
-    from ppqsflhe_tpu.ops.pallas_ntt import FourStepNtt
-
-    n = 256
-    moduli = ([primes.first_prime_down(60, 2 * n)]
-              + primes.prime_chain(40, 2, 2 * n))
-    psis = [primes.root_of_unity(2 * n, q) for q in moduli]
-    fs = FourStepNtt(n, moduli, psis)
-    pm = PMX.PallasMxuNtt(n, moduli, psis)
-    # force EVERY group onto the mont path: shoup never fits, mont always
-    monkeypatch.setattr(
-        PMX.PallasMxuNtt, "_group_fits",
-        lambda self, nd, twiddle_planes=4: twiddle_planes == 2)
-
-    rng = np.random.default_rng(7)
-    x = jnp.asarray(np.stack([
-        np.stack([rng.integers(0, q, n, dtype=np.uint64) for q in moduli])
-        for _ in range(2)
-    ]))
-    want = fs.ntt(x, implementation="xla")
-    got = pm.ntt(x, interpret=True)
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
-    back = pm.intt(got, interpret=True)
-    np.testing.assert_array_equal(np.asarray(back), np.asarray(x))

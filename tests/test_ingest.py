@@ -7,9 +7,9 @@ import os
 import numpy as np
 import pytest
 
-from ppqsflhe_tpu.ingest import Broker, CsvMaterializer, IngestServer, \
+from ppqsflhe.ingest import Broker, CsvMaterializer, IngestServer, \
     TelemetryProducer, replay_csv
-from ppqsflhe_tpu.ingest.service import HttpBrokerClient
+from ppqsflhe.ingest.service import HttpBrokerClient
 
 
 def test_publish_fetch_offsets(tmp_path):
@@ -89,7 +89,7 @@ def test_telemetry_to_training_csv(tmp_path):
     """End-to-end: produce per-client telemetry → CsvMaterializer drains into
     the client-local CSV → train.data.load_timeseries consumes it (the
     reference's documented ingestion → training handoff)."""
-    from ppqsflhe_tpu.train.data import FEATURE_NAMES, load_timeseries
+    from ppqsflhe.train.data import FEATURE_NAMES, load_timeseries
 
     b = Broker(str(tmp_path / "broker"))
     prod = TelemetryProducer(b, "client_1")
@@ -107,7 +107,7 @@ def test_telemetry_to_training_csv(tmp_path):
     df = load_timeseries(csv_path)
     assert len(df) == 50
     assert all(c in df.columns for c in FEATURE_NAMES)
-    np.testing.assert_allclose(df["Data"].values,
+    np.testing.assert_allclose(df["Data"],
                                [r["Data"] for r in rows], rtol=1e-12)
     assert df["HourOfDay"].tolist() == [i % 24 for i in range(50)]
 
@@ -117,7 +117,7 @@ def test_trainer_telemetry_hook(tmp_path):
     data_file before reading it — training runs purely off streamed data."""
     import pandas as pd
 
-    from ppqsflhe_tpu.train.trainer import train_client
+    from ppqsflhe.train.trainer import train_client
 
     b = Broker(str(tmp_path / "broker"))
     ts = pd.date_range("2024-07-01", periods=200, freq="h")

@@ -15,9 +15,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from ppqsflhe_tpu.ckks.openfhe_io import load_secret_key, load_context_params
-from ppqsflhe_tpu.ckks.params import REFERENCE_MODULI, REFERENCE_ROOTS
-from ppqsflhe_tpu.core.ntt import NttBasis
+from ppqsflhe.ckks.openfhe_io import load_secret_key, load_context_params
+from ppqsflhe.ckks.params import REFERENCE_MODULI, REFERENCE_ROOTS
+from ppqsflhe.core.ntt import NttBasis
 
 REF = "/root/reference"
 KEY1 = f"{REF}/client/storage/client_1/private/client_1-private.key"
@@ -94,7 +94,7 @@ def test_secret_key_emission_roundtrip(sk1, tmp_path):
     (whitespace aside — OpenFHE's JSON parser is whitespace-agnostic)."""
     import json
 
-    from ppqsflhe_tpu.ckks.openfhe_io import save_secret_key
+    from ppqsflhe.ckks.openfhe_io import save_secret_key
 
     out = tmp_path / "rt-private.key"
     save_secret_key(sk1.towers, KEY1, str(out))
@@ -111,8 +111,8 @@ def test_export_our_key_in_openfhe_format(tmp_path):
     polynomial (the full write→read→verify interop loop)."""
     import jax
 
-    from ppqsflhe_tpu.ckks.openfhe_io import save_secret_key
-    from ppqsflhe_tpu.core import sampling
+    from ppqsflhe.ckks.openfhe_io import save_secret_key
+    from ppqsflhe.core import sampling
 
     sk_ref = load_secret_key(KEY1)
     n = sk_ref.ring_dim
@@ -138,7 +138,7 @@ def test_export_our_key_in_openfhe_format(tmp_path):
 def test_context_emission_roundtrip(tmp_path):
     import json
 
-    from ppqsflhe_tpu.ckks.openfhe_io import load_context_params, save_context
+    from ppqsflhe.ckks.openfhe_io import load_context_params, save_context
 
     src = f"{REF}/server/storage/CC.json"
     out = tmp_path / "CC.json"
@@ -167,7 +167,7 @@ def test_generic_reemit_reproduces_ground_truth():
     the ground-truth proof of the emission engine's conventions."""
     import json
 
-    from ppqsflhe_tpu.ckks.openfhe_emit import reemit_json
+    from ppqsflhe.ckks.openfhe_emit import reemit_json
 
     for path in (KEY1, f"{REF}/server/storage/CC.json"):
         with open(path) as f:
@@ -176,7 +176,7 @@ def test_generic_reemit_reproduces_ground_truth():
 
 
 def _emitter():
-    from ppqsflhe_tpu.ckks.openfhe_emit import OpenFheEmitter
+    from ppqsflhe.ckks.openfhe_emit import OpenFheEmitter
 
     return OpenFheEmitter(64, list(REFERENCE_MODULI), list(REFERENCE_ROOTS),
                           batch_size=32)
@@ -185,8 +185,8 @@ def _emitter():
 def test_public_key_emission_roundtrip():
     """Synthetic PublicKey cereal-JSON → our reader recovers both DCRTPolys
     bit-exactly (keyGen.cpp:45 wire format)."""
-    from ppqsflhe_tpu.ckks.openfhe_emit import reemit_json
-    from ppqsflhe_tpu.ckks.openfhe_io import build_id_index, _find_first, _tower_arrays
+    from ppqsflhe.ckks.openfhe_emit import reemit_json
+    from ppqsflhe.ckks.openfhe_io import build_id_index, _find_first, _tower_arrays
 
     em = _emitter()
     rng = np.random.default_rng(1)
@@ -214,8 +214,8 @@ def test_eval_key_emission_roundtrip():
     m_rKey = [[b_j], [a_j]] grid bit-exactly (REkeyGen.cpp:60 format)."""
     import json
 
-    from ppqsflhe_tpu.ckks.openfhe_emit import reemit_json
-    from ppqsflhe_tpu.ckks.openfhe_io import build_id_index, _find_first, _tower_arrays
+    from ppqsflhe.ckks.openfhe_emit import reemit_json
+    from ppqsflhe.ckks.openfhe_io import build_id_index, _find_first, _tower_arrays
 
     em = _emitter()
     rng = np.random.default_rng(2)
@@ -239,7 +239,7 @@ def test_ciphertext_binary_roundtrip():
     the scalar metadata fields."""
     import base64
 
-    from ppqsflhe_tpu.ckks.openfhe_emit import parse_ciphertext_binary
+    from ppqsflhe.ckks.openfhe_emit import parse_ciphertext_binary
 
     em = _emitter()
     rng = np.random.default_rng(3)

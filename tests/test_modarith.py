@@ -4,7 +4,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from ppqsflhe_tpu.core import primes, modarith
+from ppqsflhe.core import primes, modarith
 
 # The reference parameter set's actual moduli (SURVEY.md §2.3) plus edge sizes.
 MODULI = [
@@ -76,7 +76,7 @@ def test_reference_prime_properties():
 def test_root_of_unity_matches_openfhe_convention():
     """OpenFHE serializes the minimal primitive 2N-th root (SURVEY.md §2.3);
     our derivation must reproduce every root in the checked-in key artifacts."""
-    from ppqsflhe_tpu.ckks.params import REFERENCE_MODULI, REFERENCE_ROOTS
+    from ppqsflhe.ckks.params import REFERENCE_MODULI, REFERENCE_ROOTS
 
     for q, want in zip(REFERENCE_MODULI, REFERENCE_ROOTS):
         got = primes.root_of_unity(32768, q)
@@ -85,7 +85,7 @@ def test_root_of_unity_matches_openfhe_convention():
 
 
 def test_security_estimate():
-    from ppqsflhe_tpu.ckks.params import CkksParams
+    from ppqsflhe.ckks.params import CkksParams
 
     p = CkksParams.generate(n=1 << 14, mult_depth=2, scale_bits=40)
     # ~160-bit Q + ~120-bit P at N=16384 → comfortably 128-bit classical

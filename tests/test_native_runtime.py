@@ -9,7 +9,7 @@ import urllib.request
 
 import pytest
 
-from ppqsflhe_tpu.runtime.native import NativeSerde, build_native, native_server_binary
+from ppqsflhe.runtime.native import NativeSerde, build_native, native_server_binary
 
 pytestmark = pytest.mark.skipif(shutil.which("g++") is None, reason="no g++")
 
@@ -37,8 +37,8 @@ def test_serde_ciphertext_blob():
     import numpy as np
     import jax.numpy as jnp
 
-    from ppqsflhe_tpu.ckks import serialize as ser
-    from ppqsflhe_tpu.ckks.types import Ciphertext
+    from ppqsflhe.ckks import serialize as ser
+    from ppqsflhe.ckks.types import Ciphertext
 
     ct = Ciphertext(jnp.asarray(np.arange(2 * 2 * 8, dtype=np.uint64).reshape(2, 2, 8)),
                     scale=2.0**40)
@@ -67,7 +67,7 @@ def test_native_server_end_to_end(tmp_path):
         with urllib.request.urlopen(base + "/getCC", timeout=5) as r:
             assert r.read() == b'{"cc": 1}'
         # POST multipart upload through the Python comm client
-        from ppqsflhe_tpu.comm.client import CommClient
+        from ppqsflhe.comm.client import CommClient
 
         c = CommClient(base, role="client_1")
         payload = str(tmp_path / "w.json")

@@ -4,9 +4,9 @@ import numpy as np
 import jax
 import pytest
 
-from ppqsflhe_tpu.ckks.noise import budget_report, noise_bits
-from ppqsflhe_tpu.ckks.params import CkksParams
-from ppqsflhe_tpu.ckks.scheme import CkksScheme
+from ppqsflhe.ckks.noise import budget_report, noise_bits
+from ppqsflhe.ckks.params import CkksParams
+from ppqsflhe.ckks.scheme import CkksScheme
 
 
 @pytest.fixture(scope="module")
@@ -54,7 +54,7 @@ def test_cdt_sampler_exact_distribution():
     table's implied pmf matches rho_k = exp(-k^2/2sigma^2) to float64
     round-off, samples are integral/symmetric/in-tail, and the empirical
     pmf matches the table at chi-square scale."""
-    from ppqsflhe_tpu.core import sampling
+    from ppqsflhe.core import sampling
 
     sigma = sampling.SIGMA
     thr = sampling._cdt_thresholds(sigma)

@@ -8,8 +8,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from ppqsflhe_tpu.core import primes
-from ppqsflhe_tpu.core.ntt import NttBasis, bit_reverse_indices
+from ppqsflhe.core import primes
+from ppqsflhe.core.ntt import NttBasis, bit_reverse_indices
 
 
 def negacyclic_mul_exact(a, b, q, n):
@@ -63,7 +63,7 @@ def test_negacyclic_convolution():
     b = np.stack([rng.integers(0, q, n, dtype=np.uint64) for q in basis.moduli])
     fa = basis.ntt(jnp.asarray(a))
     fb = basis.ntt(jnp.asarray(b))
-    from ppqsflhe_tpu.core.modarith import modmul, U64
+    from ppqsflhe.core.modarith import modmul, U64
     qv = basis.q_vec
     qinv = jnp.asarray(
         np.array([primes.mont_qinv_neg(q) for q in basis.moduli], np.uint64).reshape(-1, 1), U64)

@@ -9,7 +9,7 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from ppqsflhe_tpu.orchestration import Orchestrator, OrchestratorConfig
+from ppqsflhe.orchestration import Orchestrator, OrchestratorConfig
 
 
 def synth_csv(path, hours=200, seed=0):
@@ -276,7 +276,7 @@ def test_binary_wire_lazy_round(tmp_path):
         train=False, seed=29, lazy_levels=True, binary_wire=True,
     )
     Orchestrator(cfg).run()
-    from ppqsflhe_tpu.ckks import serialize as ser
+    from ppqsflhe.ckks import serialize as ser
 
     # uplink artifact is the binary container
     up = str(tmp_path / "run" / "client_1" / "encrypted_weights_c1.json")
@@ -300,3 +300,18 @@ def test_binary_wire_lazy_round(tmp_path):
                 want = (np.asarray(json.load(f1)["weights_summary"][0]["values"])
                         + np.asarray(json.load(f2)["weights_summary"][0]["values"])) / 2
         np.testing.assert_allclose(got, want, atol=1e-3)
+
+
+def test_chip_smoke_round_phase(tmp_path):
+    """chip_smoke's main-path phase on the CPU backend at N=2^10: two PRE
+    rounds and one threshold round through the orchestrator CLI, each
+    client's decrypted global checked against the plaintext FedAvg."""
+    import jax
+
+    import chip_smoke
+
+    cc = {"multiplicative_depth": 2, "scaling_mod_size": 40,
+          "batch_size": 512, "PREMode": "INDCPA", "ring_dim": 1024}
+    cpu = jax.devices("cpu")[0]
+    chip_smoke.round_phase(str(tmp_path), cc, cpu, cpu, hours=10 * 24,
+                           epochs=1, lookback=12)

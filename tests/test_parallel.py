@@ -7,12 +7,12 @@ import jax.numpy as jnp
 import pytest
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from ppqsflhe_tpu.ckks import eval as ev
-from ppqsflhe_tpu.ckks.multikey import aggregate_sharded, aggregate_local
-from ppqsflhe_tpu.ckks.params import CkksParams
-from ppqsflhe_tpu.ckks.scheme import CkksScheme
-from ppqsflhe_tpu.ckks.types import Ciphertext
-from ppqsflhe_tpu.parallel.mesh import make_mesh
+from ppqsflhe.ckks import eval as ev
+from ppqsflhe.ckks.multikey import aggregate_sharded, aggregate_local
+from ppqsflhe.ckks.params import CkksParams
+from ppqsflhe.ckks.scheme import CkksScheme
+from ppqsflhe.ckks.types import Ciphertext
+from ppqsflhe.parallel.mesh import make_mesh
 
 
 @pytest.fixture(scope="module")

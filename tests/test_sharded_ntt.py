@@ -7,10 +7,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from ppqsflhe_tpu.core import primes
-from ppqsflhe_tpu.ops.pallas_ntt import FourStepNtt
-from ppqsflhe_tpu.ops.sharded_ntt import ShardedNtt
-from ppqsflhe_tpu.parallel.mesh import make_mesh
+from ppqsflhe.core import primes
+from ppqsflhe.ops.fourstep import FourStepNtt
+from ppqsflhe.ops.sharded_ntt import ShardedNtt
+from ppqsflhe.parallel.mesh import make_mesh
 
 
 @pytest.fixture(scope="module")

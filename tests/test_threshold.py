@@ -12,11 +12,11 @@ import numpy as np
 import pytest
 from jax.sharding import Mesh
 
-from ppqsflhe_tpu.ckks import eval as ev
-from ppqsflhe_tpu.ckks import threshold as th
-from ppqsflhe_tpu.ckks.params import CkksParams
-from ppqsflhe_tpu.ckks.scheme import CkksScheme
-from ppqsflhe_tpu.ckks.types import Ciphertext
+from ppqsflhe.ckks import eval as ev
+from ppqsflhe.ckks import threshold as th
+from ppqsflhe.ckks.params import CkksParams
+from ppqsflhe.ckks.scheme import CkksScheme
+from ppqsflhe.ckks.types import Ciphertext
 
 N_PARTIES = 3
 
@@ -82,7 +82,7 @@ def test_lead_main_fusion_split(sch, joint):
     partials += [th.partial_decrypt(sch.ctx, s, ct, k)
                  for s, k in zip(shares[1:], keys[1:])]
     coeffs = th.fuse_partial_decryptions(sch.ctx, ct, partials, include_c0=False)
-    from ppqsflhe_tpu.ckks.rlwe import decode_coeffs
+    from ppqsflhe.ckks.rlwe import decode_coeffs
 
     out = decode_coeffs(sch.ctx, coeffs, ct, sch.encoder)
     np.testing.assert_allclose(out, v, atol=0.08)
@@ -131,7 +131,7 @@ def test_sharded_joint_keygen_and_decrypt(sch):
     s_local = jnp.stack([s.s_eval for s in shares])  # (8, L+K, N)
     rng_local = jax.random.split(jax.random.PRNGKey(42), n_parties)
     coeffs = th.partial_decrypt_psum(sch.ctx, ct, s_local, rng_local, mesh)
-    from ppqsflhe_tpu.ckks.rlwe import decode_coeffs
+    from ppqsflhe.ckks.rlwe import decode_coeffs
 
     out = decode_coeffs(sch.ctx, coeffs, ct, sch.encoder)
     np.testing.assert_allclose(out, v, atol=0.08)
